@@ -1,10 +1,8 @@
-"""One-setup cadence/rebuild sweep at bench scale (TPU).
+"""One-setup cadence/rebuild sweep at bench scale (GPU).
 
-The round-5 question: the compiled run loop pays ~2.9 s per rebuild
-(bench 208.8 ms/step at R=20 vs the 65 ms profiled plain step), so the
-amortized rebuild dominates the step budget. This harness builds the
-drum ONCE (setup ~4 min is all host-side shape precompute) and then
-measures, sharing shapes/params/grid/walls across Simulation configs:
+How much of the step budget is the amortized rebuild? This harness
+builds the drum ONCE and then measures, sharing
+shapes/params/grid/walls across Simulation configs:
 
   1. block decomposition at R: _run_cadence_jit(r=1) isolates the
      rebuild step as compiled IN the scan (the profiled standalone
@@ -25,25 +23,24 @@ import time
 
 sys.path.insert(0, ".")
 
-from spherharm_tpu.utils import backend as _backend
-
-_backend.require_tpu_or_die("cadence_sweep")
-
 import jax
 import jax.numpy as jnp
 
 from spherharm_tpu.core.simulation import Simulation, _run_cadence_jit
 from spherharm_tpu.models import scenarios
+from spherharm_tpu.utils import device
 
 
 def main():
     n = int(os.environ.get("SWEEP_N", 100_000))
     lmax = int(os.environ.get("SWEEP_LMAX", 8))
     rs = [int(r) for r in os.environ.get("SWEEP_R", "20,40,80,0").split(",")]
+    _, card = device.require_gpu()
+    print(f"# {card}", flush=True)
 
     t0 = time.time()
     sim0, state0, neigh0 = scenarios.rotating_drum(
-        n=n, lmax=lmax, k_max=24, use_pallas=True,
+        n=n, lmax=lmax, k_max=24,
         pair_capacity=5 * n, stage2_capacity=3 * n,
         rebuild_every=20, conservative=True,
     )
@@ -53,7 +50,7 @@ def main():
         return Simulation(
             sim0.shapes, sim0.params, neighbor_mode="cell", grid=sim0.grid,
             k_max=sim0.k_max, cell_cap=sim0.cell_cap, walls=sim0.walls,
-            pair_capacity=sim0.pair_capacity, use_pallas=True,
+            pair_capacity=sim0.pair_capacity,
             rebuild_every=rebuild_every, wall_capacity=sim0.wall_capacity,
             stage2_capacity=sim0.stage2_capacity, conservative=True,
         )

@@ -13,8 +13,7 @@ samples fold in the analytic-PE-vs-quadrature-force mismatch, a
 bounded bias rather than secular drift.
 
 Usage: python scripts/drift_lmax8.py [n_steps] [block]
-  block is also the single-dispatch scan length — keep it modest so no
-  TPU dispatch approaches the ~90 s wedge limit.
+  block is also the single-dispatch scan length.
 """
 
 from __future__ import annotations

@@ -1,13 +1,11 @@
-"""Per-stage TPU timing of the drum step at bench scale.
+"""Per-stage GPU timing of the drum step at bench scale.
 
-Times, separately jitted and block_until_ready'd (prefilter era: the
-stage-1 probe + candidate compaction run at REBUILD cadence; the
-per-step path is pack + full kernel + segment sums):
+Times, separately jitted and block_until_ready'd (the prefilter
+probe + candidate compaction run at REBUILD cadence; the per-step path
+is row gathers + narrow phase + segment sums):
   step     - one whole step via sim.run
   forces   - contact_force_pairs as the step runs it
   rows     - particle_rows pack
-  pack     - per-pair kernel-input pack (rows gathers + tables)
-  kernel   - the fused narrow-phase kernel over the prefiltered list
   rebuild  - neighbor rebuild incl. prefilter (amortized /rebuild_every)
   walls    - wall contact stage
   integ    - initial+final integrate
@@ -29,7 +27,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from spherharm_tpu.models import scenarios
-from spherharm_tpu.ops import contact, contact_pallas, integrate, walls as walls_mod
+from spherharm_tpu.ops import contact, integrate, walls as walls_mod
+from spherharm_tpu.utils import device
 
 
 def timeit(fn, *args, n=5, warmup=2):
@@ -48,13 +47,14 @@ def main():
     lmax = int(sys.argv[2]) if len(sys.argv) > 2 else 8
     # Match bench.py's caps EXACTLY by default (3n stage-2, 5n
     # candidates) so every sim.run program rides the bench's cache
-    # entries — the round-4 3.5n default missed them and paid a
-    # multi-minute recompile to measure the same thing.
+    # entries.
     stage2 = int(os.environ.get("PROF_STAGE2", 3 * n))
     pair_cap = int(os.environ.get("PROF_PAIR_CAP", 5 * n))
     cons = os.environ.get("PROF_CONS", "1") == "1"
+    _, card = device.require_gpu()
+    print(f"# {card}", flush=True)
     sim, state, neigh = scenarios.rotating_drum(
-        n=n, lmax=lmax, k_max=24, use_pallas=True,
+        n=n, lmax=lmax, k_max=24,
         rebuild_every=20, stage2_capacity=stage2, conservative=cons,
         pair_capacity=pair_cap,
     )
@@ -82,42 +82,15 @@ def main():
         return contact.contact_force_pairs(
             st, shapes, params, ng, exact=sim.exact_eval,
             periodic=sim.periodic, chunk=sim.pair_chunk,
-            use_pallas=True, conservative=cons,
+            conservative=cons,
         )[0]
 
     t_full = timeit(lambda: full(state, neigh))
     print(f"forces      {t_full*1e3:8.2f} ms", flush=True)
 
-    pi, pj = neigh.pair_i, neigh.pair_j
-
-    @jax.jit
-    def pack(st, ng):
-        rws = contact.particle_rows(st, shapes)
-        ri, rj = rws[pi], rws[pj]
-        msk = ng.pair_valid
-        dp = contact.minimum_image(
-            rj[:, contact._RX] - ri[:, contact._RX],
-            st.box_lo, st.box_hi, sim.periodic,
-        )
-        return contact_pallas.pack_pairs(
-            st, shapes, params, pi, pj, msk, ng.pair_hist, dp, rows=rws
-        )
-
-    packed, tbl, cap, par = pack(state, neigh)
-    jax.block_until_ready(packed)
-    t_pack = timeit(lambda: pack(state, neigh)[0])
-    print(f"pack        {t_pack*1e3:8.2f} ms", flush=True)
-
-    ker = jax.jit(lambda pk, tb: contact_pallas.pair_contact_pallas(
-        pk, tb, cap, par, lmax=shapes.lmax, conservative=cons))
-    t_ker = timeit(lambda: ker(packed, tbl))
-    print(f"kernel      {t_ker*1e3:8.2f} ms  ({sim.pair_list_cap} pairs)",
-          flush=True)
-
-    # Materialize EVERY rebuild output (round-4 bug: returning only
-    # .idx let XLA dead-code-eliminate the pair build, the prefilter
-    # probe and the history remap — 'rebuild 394 ms' was just the cell
-    # list; the true figure was ~3.1 s, measured from the R-sweep).
+    # Materialize EVERY rebuild output: returning only .idx lets XLA
+    # dead-code-eliminate the pair build, the prefilter probe and the
+    # history remap.
     def _reb_all(st, ng):
         st2, ng2 = sim._rebuild(st, ng)
         return (ng2.idx, ng2.hist, ng2.pair_i, ng2.pair_hist,

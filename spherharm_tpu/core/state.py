@@ -1,13 +1,13 @@
 """Core pytree containers: State, Shapes, NeighborState, SimParams.
 
-This is the TPU-native collapse of the reference's Atom/AtomVec layer
+This is the array-program collapse of the reference's Atom/AtomVec layer
 (SURVEY.md section 2 B.2: per-atom arrays x, v, f, omega/angmom, quat,
 shtype -> coefficient table) into struct-of-arrays pytrees
 (BASELINE.json:5 "pure-functional state API (positions, quaternions, SH
 coefficient tables)").
 
 Fixed capacity everywhere: ``State`` holds ``cap`` particle slots with an
-``active`` mask (the TPU answer to LAMMPS's dynamic per-atom arrays), and
+``active`` mask (the fixed-shape answer to LAMMPS's dynamic per-atom arrays), and
 ``NeighborState`` holds a fixed-K neighbor tensor with validity mask.
 """
 
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from spherharm_tpu.utils import struct
 
 
 @struct.dataclass
@@ -79,7 +79,7 @@ class Shapes:
     cap_glw: jax.Array       # [Gc] GL weights (sum over gamma block = 1)
     cap_cpsi: jax.Array      # [Gc] cos(psi) azimuth
     cap_spsi: jax.Array      # [Gc] sin(psi)
-    # Coarse stage-1 cap grid (two-stage narrow phase): a cheap r-only
+    # Coarse cap grid of the rebuild-time prefilter: a cheap r-only
     # containment probe on these nodes culls the ~70-90% of bounding-
     # sphere candidates that are not actually touching, so the full
     # gradient evaluation on the fine cap grid runs only on survivors.
@@ -90,14 +90,11 @@ class Shapes:
     vol: jax.Array           # [T] volume (unit scale, unit density)
     inertia: jax.Array       # [T, 3] principal inertia (unit scale/density)
     density: jax.Array       # [T] mass density
-    # Power-basis (monomial) tables for the hot kernels (ops/sh_power.py):
-    # coefficients absorbed into per-type per-m Horner runs, ~3x fewer
-    # FLOPs per node than the streaming ALP chain. A truncated stage-1
-    # probe slices the A/B prefix of power_tbl directly; tail1 is the
-    # conservative truncation bound sum_{l>l1}|c| * max|Y| for it.
-    l1: int = struct.field(pytree_node=False)   # stage-1 truncation degree
+    # Power-basis (monomial) tables (ops/sh_power.py): coefficients
+    # absorbed into per-type per-m Horner runs, ~3x fewer FLOPs per node
+    # than the streaming ALP chain. The rebuild-time prefilter probe
+    # evaluates r from the A/B prefix of power_tbl.
     power_tbl: jax.Array     # [T, W(lmax)] full r/drt/drp Horner tables
-    tail1: jax.Array         # [T] stage-1 truncation tail bound (unit scale)
     # Max tangential surface gradient |grad_tang r| (unit scale): bounds
     # the radial surface motion under body rotation (rotation-aware
     # neighbor/prefilter skin trigger; 0 for spheres).
@@ -126,7 +123,7 @@ class Shapes:
 class NeighborState:
     """Fixed-capacity Verlet neighbor tensor + contact history.
 
-    TPU-native replacement for the reference's NeighList pages + granular
+    Fixed-shape replacement for the reference's NeighList pages + granular
     contact-history fix (SURVEY.md section 2 B.3). ``idx`` is a FULL list:
     pair (i, j) appears in both rows, so force accumulation is a pure
     per-row reduction with no scatter (Newton handled by antisymmetry).

@@ -1,7 +1,7 @@
 """Builders for the five acceptance configurations (BASELINE.json:7-11).
 
 Each returns (Simulation, State, NeighborState) ready to ``run``. These are
-the TPU-side equivalents of the reference's example input decks
+the equivalents of the reference's example input decks
 (SURVEY.md section 4.3).
 """
 
@@ -194,10 +194,9 @@ def rotating_drum(
     k_max: int = 24,
     pair_chunk: int = 0,
     pair_capacity: int | None = None,
-    contact_quad=(8, 16),  # 128 cap nodes: lane-aligned for the TPU kernel
-    use_pallas: bool = False,
+    contact_quad=(8, 16),  # 128 cap nodes
     rebuild_every: int = 0,
-    exact_eval: bool | None = None,
+    exact_eval: bool = True,
     stage2_capacity: int = 0,
     conservative: bool = True,
     rebuild_chunk: int | None = None,
@@ -276,7 +275,7 @@ def rotating_drum(
     sim = Simulation(
         shapes, params, neighbor_mode="cell", grid=grid,
         k_max=k_max, cell_cap=10, walls=walls, pair_chunk=pair_chunk,
-        pair_capacity=pair_capacity, use_pallas=use_pallas,
+        pair_capacity=pair_capacity,
         rebuild_every=rebuild_every, exact_eval=exact_eval,
         wall_capacity=wall_cap, stage2_capacity=stage2_capacity,
         conservative=conservative, rebuild_chunk=rebuild_chunk,
@@ -308,12 +307,15 @@ def triaxial_cell(
     cap_local: int = 0,
     halo_cap: int = 0,
     conservative: bool = False,
+    pair_chunk: int = 0,
 ):
     """Config 5: triaxial shear cell with periodic boundaries and
     stress-tensor output (BASELINE.json:11). Diagonal strain-rate control
     compresses the cell; the stress tensor comes from the kinetic +
-    virial sums in thermo. ``sharded=True`` builds the multi-chip
-    variant (halo exchange via lax collectives) on the given mesh.
+    virial sums in thermo. ``sharded=True`` builds the multi-device
+    variant (halo exchange via lax collectives) on the given mesh: slabs
+    (ShardedSimulation) on a 1D ("x",) mesh, a brick (BrickSimulation)
+    on a 2D/3D ("x", "y"[, "z"]) mesh.
     """
     rng = np.random.default_rng(seed)
     coeffs = np.stack([
@@ -355,10 +357,12 @@ def triaxial_cell(
     periodic = (True, True, True)
     triclinic = any(abs(s) > 0 for s in shear_rate)
     if sharded:
+        from spherharm_tpu.parallel.brick import BrickSimulation
         from spherharm_tpu.parallel.halo import ShardedSimulation
 
         n_dev = mesh.devices.size
-        sim = ShardedSimulation(
+        cls = ShardedSimulation if mesh.devices.ndim == 1 else BrickSimulation
+        sim = cls(
             shapes, params, mesh=mesh, box_lo=(0, 0, 0),
             box_hi=(box, box, box),
             cap_local=cap_local or max(4 * n // n_dev, 64),
@@ -381,6 +385,7 @@ def triaxial_cell(
     sim = Simulation(
         shapes, params, periodic=periodic, neighbor_mode="cell", grid=grid,
         k_max=k_max, cell_cap=16, pair_capacity=max(12 * n, 512),
+        pair_chunk=pair_chunk,
         press_control=press_tau > 0, triclinic=triclinic,
         conservative=conservative,
     )

@@ -193,15 +193,10 @@ def build_shapes(
 
     table = build_radius_table_np(coeffs, lmax, table_res[0], table_res[1])
 
-    # Power-basis Horner tables for the hot kernels (ops/sh_power.py);
-    # the stage-1 probe gets an l1-truncated r-only (A/B) table plus the
-    # conservative truncation tail bound (|Y_lm| <= sqrt((2l+1)/4pi)).
+    # Power-basis Horner tables (ops/sh_power.py).
     from spherharm_tpu.ops import sh_power
 
-    l1 = min(4, lmax)
     power_tbl = sh_power.build_power_tables_np(coeffs, lmax)
-    ymax = math.sqrt((2 * lmax + 1) / (4.0 * math.pi))
-    tail1 = ymax * np.sum(np.abs(coeffs[:, n_coeffs(l1):]), axis=1)
     # Max tangential surface gradient (rotation skin bound; 0 = sphere).
     # Sampled on a DENSE uniform grid (not the coarse contact-quad
     # nodes, whose peaks can fall between samples for rough lmax=8
@@ -249,8 +244,6 @@ def build_shapes(
         vol=f(vol),
         inertia=f(diag),
         density=f(density),
-        l1=l1,
         power_tbl=f(power_tbl),
-        tail1=f(tail1),
         gmax=f(gmax),
     )

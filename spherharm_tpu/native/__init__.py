@@ -1,6 +1,6 @@
 """Native (C++) host-side components, built on demand with g++.
 
-The compute path is JAX/XLA/Pallas (the TPU-native analogue of the
+The compute path is JAX/XLA/Pallas (the array-program analogue of the
 reference's C++ kernels); these are the genuinely host-side pieces the
 reference also keeps native — snapshot formatting and bulk text parsing
 (SURVEY.md section 2 B.7). Loaded lazily via ctypes; every caller has a
@@ -27,7 +27,7 @@ def _build_and_load():
         tag = hashlib.sha1(f.read()).hexdigest()[:12]
     cache = os.environ.get(
         "SPHERHARM_NATIVE_CACHE",
-        os.path.expanduser("~/.cache/spherharm_native"),
+        os.path.join(os.path.dirname(os.path.dirname(_HERE)), ".native_build"),
     )
     os.makedirs(cache, exist_ok=True)
     so = os.path.join(cache, f"dumpio_{tag}.so")

@@ -1,6 +1,6 @@
 // Native trajectory/data-file formatter — the hot host-side I/O path.
 //
-// TPU-native counterpart of the reference's C++ Dump layer (SURVEY.md
+// Host-side counterpart of the reference's C++ Dump layer (SURVEY.md
 // section 2 B.7: Dump styles ~2,500 LoC C++): snapshot formatting is
 // host work on the output path, and a Python per-row loop dominates
 // dump cadence at N=100k. This formats a whole frame in one call.

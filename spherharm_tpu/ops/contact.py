@@ -1,6 +1,6 @@
 """SH contact narrow phase + Hertz/friction force law — THE hot path.
 
-TPU-native re-design of the reference's SH contact pair style
+Array-program re-design of the reference's SH contact pair style
 (SURVEY.md section 2 B.4 / 3.3; capability contract BASELINE.json:5:
 "pairwise contact hot path (associated-Legendre/Ylm recurrences, radius
 evaluation on Gauss-Legendre quadrature grids, overlap-volume and
@@ -57,7 +57,7 @@ import jax
 import jax.numpy as jnp
 
 from spherharm_tpu.core import state as state_mod
-from spherharm_tpu.ops import rotation, sh_math
+from spherharm_tpu.ops import rotation, sh_math, sh_power
 from spherharm_tpu.ops.rotation import (
     angles_from_unit,
     quat_rotate,
@@ -128,7 +128,7 @@ def _unit_trig(u):
     """(cos t, sin t, cos p, sin p) of unit vectors u[..., 3] — no angles.
 
     Saves arccos/arctan2 + sin/cos per node (4+ transcendentals) in the
-    hot loop; also the form Mosaic can lower (no acos primitive).
+    hot loop.
     """
     ct = jnp.clip(u[..., 2], -1.0, 1.0)
     st = jnp.sqrt(jnp.maximum(u[..., 0] ** 2 + u[..., 1] ** 2, 1e-24))
@@ -170,14 +170,13 @@ def surface_probe(qi, si, type_i, qj, sj, type_j,
     angle measure r^2 dOmega): ANY fixed smooth measure yields an
     exactly conservative force when the PE is differentiated, and the
     inclination-free measure needs only r and its FIRST angular
-    derivatives in the gradient — the property the hand-written Pallas
-    backward exploits. The depth-moment ratio S2/S1 (and with it the
+    derivatives in the gradient (cheap to hand-derive). The depth-moment ratio S2/S1 (and with it the
     overlap depth) is measure-normalized, so the physics difference is
     O(patch tilt), negligible at contact overlaps.
 
     All args are per-pair (leading dim P); rb/rm/rc are the pre-scaled
     bounding / inscribed / characteristic radii (so no per-pair shape
-    table lookups happen here — TPU gathers are the enemy). ``d`` is the
+    table lookups happen here). ``d`` is the
     minimum-image x_j - x_i. Builds the adaptive cap grid on i facing j,
     evaluates i's own radius there, transforms into j's frame, tests
     containment.
@@ -279,9 +278,8 @@ def surface_probe(qi, si, type_i, qj, sj, type_j,
     return s1, s2, centroid_num, normal_num, jnp.max(depth, axis=-1)
 
 
-# Packed per-particle row layout (single row-gather per pair side beats
-# ~15 per-field gathers: TPU has no hardware gather, and small-row
-# gathers dominated the step at scale). Columns:
+# Packed per-particle row layout (one row-gather per pair side instead
+# of ~15 per-field gathers). Columns:
 ROW_W = 20
 _RX, _RV, _RQ, _ROM = slice(0, 3), slice(3, 6), slice(6, 10), slice(10, 13)
 _RM_, _RRB, _RRM, _RRC, _RS, _RACT = 13, 14, 15, 16, 17, 18
@@ -344,7 +342,7 @@ def pair_contact_rows(rows_i, rows_j, t_i, t_j, hist, pair_mask,
     # Both-sided probes (i's nodes in j, j's nodes in i). Conservative
     # mode uses the inclination-free measure (see surface_probe) so the
     # geometric aux (delta, centroid, normal) matches the PE gradient's
-    # measure — and the Pallas twin — exactly.
+    # measure exactly.
     s1a, s2a, c1, n1, dep1 = surface_probe(
         q_i, s_i, t_i, q_j, s_j, t_j, rb_j, rm_i, rb_i, rc_j,
         d, shapes, exact, incl=not conservative
@@ -629,7 +627,7 @@ def contact_force_dense(state, shapes, params, neigh,
     virial are halved to undo double counting.
 
     ``chunk``: if > 0, process rows in blocks of this size with lax.map to
-    bound [N*K, G] intermediates (VMEM/HBM working-set control).
+    bound [N*K, G] intermediates (device-memory working set).
     """
     N, K = neigh.idx.shape
     i_idx = jnp.broadcast_to(jnp.arange(N)[:, None], (N, K))
@@ -674,7 +672,8 @@ def contact_force_dense(state, shapes, params, neigh,
     tau = jnp.sum(torque.reshape(N, K, 3), axis=1)
     pe_total = 0.5 * jnp.sum(pe)
     # Virial: W_ab = -1/2 sum_pairs d_a F_b (d = x_j - x_i, F on i).
-    virial = -0.5 * jnp.einsum("pa,pb->ab", d, force)
+    virial = -0.5 * jnp.einsum("pa,pb->ab", d, force,
+                               precision=jax.lax.Precision.HIGHEST)
     return f, tau, hist_new.reshape(N, K, -1), pe_total, virial
 
 
@@ -761,6 +760,99 @@ def build_pair_list(state, shapes, params, neigh_idx, neigh_mask, hist,
     return fields, n_pairs
 
 
+def _probe_side_depth(q_a, q_b, t_a, t_b, rb_b, rm_a, rb_a, d, dist,
+                      cap1, lmax: int):
+    """Max signed node depth (r_b - rho) of a's coarse cap nodes inside
+    b, per pair [P]: the r-only half of surface_probe on the power
+    basis."""
+    cap_x, cap_cpsi, cap_spsi = cap1
+    e_body = quat_rotate_inv(q_a, d / dist[:, None])
+    rho_star = jnp.sqrt(jnp.maximum(dist * dist - rb_b * rb_b, 0.0))
+    rho_c = jnp.clip(rho_star, rm_a, rb_a)
+    cos_gmax = jnp.clip(
+        (rho_c * rho_c + dist * dist - rb_b * rb_b)
+        / jnp.maximum(2.0 * rho_c * dist, 1e-12),
+        -1.0, 1.0 - 1e-6,
+    )
+    cos_g = 1.0 - (1.0 - cos_gmax)[:, None] * cap_x[None, :]
+    sin_g = jnp.sqrt(jnp.maximum(1.0 - cos_g * cos_g, 0.0))
+    t1, t2 = _orthobasis(e_body)
+    dirs = (
+        cos_g[..., None] * e_body[:, None, :]
+        + (sin_g * cap_cpsi)[..., None] * t1[:, None, :]
+        + (sin_g * cap_spsi)[..., None] * t2[:, None, :]
+    )
+    r_a = sh_power.eval_power_radius(t_a, *_unit_trig(dirs), lmax, xp=jnp)
+    rel = quat_rotate(q_a[:, None, :], r_a[..., None] * dirs)
+    u = quat_rotate_inv(q_b[:, None, :], rel - d[:, None, :])
+    rho = jnp.sqrt(jnp.maximum(jnp.sum(u * u, axis=-1), 1e-24))
+    r_b = sh_power.eval_power_radius(
+        t_b, *_unit_trig(u / rho[..., None]), lmax, xp=jnp)
+    return jnp.max(r_b - rho, axis=-1)
+
+
+def probe_depth(rows_i, rows_j, tab_i, tab_j, d, mask, cap1, lmax: int):
+    """Rebuild-time r-only containment probe on the coarse cap grid.
+
+    rows_*: particle_rows of each side; tab_*: per-pair pre-scaled A/B
+    power-table rows [P, (lmax+1)^2]; d: minimum-image x_j - x_i; cap1:
+    (x, cos psi, sin psi) of the coarse grid. Returns, per pair, the
+    larger of both directions' max node depth (> 0: a node of one
+    surface lies inside the other). Bounding-sphere-separated pairs are
+    not probed (the cap geometry assumes dist < rsum) but still report
+    a valid upper bound, rsum - dist: surfaces sit inside the spheres,
+    so this keeps rebuild-cadence prefiltering sound for pairs that
+    close into sphere contact within the window. Masked pairs get -1e9.
+    """
+    dist = jnp.sqrt(jnp.maximum(jnp.sum(d * d, axis=-1), 1e-24))
+    q_i, q_j = rows_i[:, _RQ], rows_j[:, _RQ]
+    rb_i, rb_j = rows_i[:, _RRB], rows_j[:, _RRB]
+    rm_i, rm_j = rows_i[:, _RRM], rows_j[:, _RRM]
+    m_ij = _probe_side_depth(q_i, q_j, tab_i, tab_j, rb_j, rm_i, rb_i, d,
+                             dist, cap1, lmax)
+    m_ji = _probe_side_depth(q_j, q_i, tab_j, tab_i, rb_i, rm_j, rb_j, -d,
+                             dist, cap1, lmax)
+    rsum = rb_i + rb_j
+    depth = jnp.where(dist < rsum, jnp.maximum(m_ij, m_ji), rsum - dist)
+    return jnp.where(mask & (dist > 1e-12), depth, -1e9)
+
+
+# Coarse-grid slack of the prefilter probe, in units of the pair's
+# smaller scaled rchar: the probe (32 cap nodes) plus this slack bounds
+# the fine-grid node depth of every pair in contact.
+PROBE_SLACK = 0.08
+
+
+def probe_pairs(state, shapes, pi, pj, mask, d, rows):
+    """probe_depth of index pairs (pi, pj) with minimum-image d = x_j -
+    x_i, on the coarse cap grid with full-basis A/B power tables."""
+    # r-only A/B prefix of the power tables (ops/sh_power.py), full
+    # basis: a truncation tail bound would eat the filter margin.
+    tab = shapes.power_tbl[:, :(shapes.lmax + 1) ** 2]
+    cap1 = (shapes.cap1_x, shapes.cap1_cpsi, shapes.cap1_spsi)
+    return probe_depth(
+        rows[pi], rows[pj],
+        tab[state.shtype[pi]] * state.scale[pi][:, None],
+        tab[state.shtype[pj]] * state.scale[pj][:, None],
+        d, mask, cap1, shapes.lmax,
+    )
+
+
+def max_node_depth(rows_i, rows_j, t_i, t_j, d, shapes, exact=True):
+    """Largest node depth of either surface inside the other on the fine
+    contact cap grid, per pair [P]: what probe_pairs + PROBE_SLACK * rc
+    must bound for every pair in contact."""
+    args_i = (rows_i[:, _RQ], rows_i[:, _RS])
+    args_j = (rows_j[:, _RQ], rows_j[:, _RS])
+    *_, dep1 = surface_probe(*args_i, t_i, *args_j, t_j, rows_j[:, _RRB],
+                             rows_i[:, _RRM], rows_i[:, _RRB],
+                             rows_j[:, _RRC], d, shapes, exact)
+    *_, dep2 = surface_probe(*args_j, t_j, *args_i, t_i, rows_i[:, _RRB],
+                             rows_j[:, _RRM], rows_j[:, _RRB],
+                             rows_i[:, _RRC], -d, shapes, exact)
+    return jnp.maximum(dep1, dep2)
+
+
 @partial(jax.jit, static_argnames=("keep_cap", "k_max", "window_steps",
                                    "floor_frac", "periodic", "probe_chunk",
                                    "axes"))
@@ -803,8 +895,6 @@ def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
     budget [N]); n_survivors > keep_cap means dropped contacts —
     overflow channel.
     """
-    from spherharm_tpu.ops import contact_pallas
-
     pi, pj = fields["pair_i"], fields["pair_j"]
     P = pi.shape[0]
     rows = particle_rows(state, shapes)
@@ -817,38 +907,11 @@ def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
         rows[pj][:, _RX] - rows[pi][:, _RX],
         state.box_lo, state.box_hi, periodic, tilt,
     )
-    tail_lo, _ = contact_pallas._SLOTS["tail"]
-    nc_ab = (shapes.lmax + 1) ** 2  # A/B prefix of the power layout
-    hw = fields["pair_hist"].shape[-1]
-
-    # Probe on the COARSE stage-1 cap grid (Shapes.cap1_*, 32 nodes) —
-    # the 0.08 rchar slack below is calibrated for exactly this grid.
-    # Round-4 regression: pack_pairs returns the full 128-node contact
-    # grid and the probe ran on THAT — 4x the designed nodes; combined
-    # with the full-basis choice the probe cost 5.05 s over 1M
-    # candidates while the whole stage-2 step kernel costs 25 ms
-    # (profile 2026-08-19). Full basis stays (the l1-truncation tail
-    # would eat the filter margin, see below); the grid does not.
-    cap1 = jnp.stack([shapes.cap1_x, shapes.cap1_glw,
-                      shapes.cap1_cpsi, shapes.cap1_spsi], axis=0)
-
+    # Probe on the COARSE cap grid (Shapes.cap1_*, 32 nodes) — the
+    # PROBE_SLACK margin below is calibrated for exactly this grid.
     def probe_rows(args):
-        # One probe block: pack + full-basis f32 r-only depth. The
-        # per-pair power-table rows are built IN the probe kernel from
-        # the typ/scl columns (contact_pallas._side_tables), so the
-        # packed [P, _F] rows are the only candidate-scale transient
-        # (1.3 GB at P=5e6; chunking still bounds the n~1M case).
         pi_b, pj_b, msk_b, dp_b = args
-        hist_b = jnp.zeros((pi_b.shape[0], hw), dp_b.dtype)
-        packed, tbl, _, _ = contact_pallas.pack_pairs(
-            state, shapes, params, pi_b, pj_b, msk_b, hist_b, dp_b,
-            rows=rows, probe_only=True,
-        )
-        packed = packed.at[:, tail_lo].set(0.0)
-        return contact_pallas.stage1_depth_pallas(
-            packed, tbl[:, :nc_ab], cap1, lmax=shapes.lmax, l1=shapes.lmax,
-            bf16=False,
-        )
+        return probe_pairs(state, shapes, pi_b, pj_b, msk_b, dp_b, rows)
 
     if probe_chunk and P > probe_chunk:
         C = probe_chunk
@@ -901,7 +964,7 @@ def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
     # rebuild window — the global unit-scale minimum under-protects
     # scaled-up or large-type pairs.
     rc_pair = jnp.minimum(rows[pi, _RRC], rows[pj, _RRC])
-    margin = 0.08 * rc_pair + budget[pi] + budget[pj]
+    margin = PROBE_SLACK * rc_pair + budget[pi] + budget[pj]
     survive = msk & (depth > -margin)
 
     n_surv = jnp.sum(survive.astype(jnp.int32))
@@ -955,12 +1018,11 @@ def pair_hist_to_dense(neigh):
 
 
 @partial(jax.jit, static_argnames=("exact", "periodic", "chunk",
-                                   "use_pallas", "conservative"))
+                                   "conservative"))
 def contact_force_pairs(state, shapes, params, neigh,
-                        exact: bool = False,
+                        exact: bool = True,
                         periodic=(False, False, False),
                         chunk: int = 16384,
-                        use_pallas: bool = False,
                         tilt=None,
                         conservative: bool = False):
     """Per-step force/torque over the stable pair list (the hot path).
@@ -969,8 +1031,7 @@ def contact_force_pairs(state, shapes, params, neigh,
     row-gathers, the narrow-phase kernel, two sorted segment-sums per
     output. Springs update in place in pair space. With the rebuild-time
     prefilter (prefilter_pair_list) the list already holds only
-    near-contact pairs, so the full kernel runs over every slot — the
-    per-step two-stage probe of rounds 1-2 moved to rebuild cadence.
+    near-contact pairs, so the full kernel runs over every slot.
 
     Returns (f [N,3], tau [N,3], pair_hist [Pc,HW], pe_total, virial).
     """
@@ -986,58 +1047,36 @@ def contact_force_pairs(state, shapes, params, neigh,
     )
     P = pi.shape[0]
 
-    if use_pallas:
-        from spherharm_tpu.ops import contact_pallas
-
-        dp = minimum_image(
-            rows_j[:, _RX] - rows_i[:, _RX],
-            state.box_lo, state.box_hi, periodic, tilt,
-        )
-        packed, tbl, cap, par = contact_pallas.pack_pairs(
-            state, shapes, params, pi, pj, msk, neigh.pair_hist, dp,
-            rows=rows,
-        )
-        out = contact_pallas.pair_contact_pallas(
-            packed, tbl, cap, par, lmax=shapes.lmax,
+    def run(block):
+        ri, rj, ti, tj, m, h = block
+        return pair_contact_rows(
+            ri, rj, ti, tj, h, m,
+            state.box_lo, state.box_hi, shapes, params,
+            exact=exact, periodic=periodic, tilt=tilt,
             conservative=conservative,
         )
-        force = out[:, 0:3]
-        torque = out[:, 3:6]
-        torque_j = out[:, 6:9]
-        hist_new = out[:, 9:15]
-        pe = out[:, 15]
-        d = dp
-    else:
-        def run(block):
-            ri, rj, ti, tj, m, h = block
-            return pair_contact_rows(
-                ri, rj, ti, tj, h, m,
-                state.box_lo, state.box_hi, shapes, params,
-                exact=exact, periodic=periodic, tilt=tilt,
-                conservative=conservative,
-            )
 
-        blocks = (rows_i, rows_j, state.shtype[pi], state.shtype[pj],
-                  msk, neigh.pair_hist)
-        if chunk and P > chunk:
-            n_chunks = -(-P // chunk)
-            pad = n_chunks * chunk - P
-            blocks = jax.tree.map(
-                lambda a: jnp.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1)),
-                blocks,
-            )
-            blocks = jax.tree.map(
-                lambda a: a.reshape((n_chunks, chunk) + a.shape[1:]), blocks
-            )
-            outs = jax.lax.map(run, blocks)
-            unpad = lambda a: a.reshape(
-                (n_chunks * chunk,) + a.shape[2:]
-            )[:P]
-            force, torque, torque_j, hist_new, pe, _, d = (
-                jax.tree.map(unpad, outs)
-            )
-        else:
-            force, torque, torque_j, hist_new, pe, _, d = run(blocks)
+    blocks = (rows_i, rows_j, state.shtype[pi], state.shtype[pj],
+              msk, neigh.pair_hist)
+    if chunk and P > chunk:
+        n_chunks = -(-P // chunk)
+        pad = n_chunks * chunk - P
+        blocks = jax.tree.map(
+            lambda a: jnp.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1)),
+            blocks,
+        )
+        blocks = jax.tree.map(
+            lambda a: a.reshape((n_chunks, chunk) + a.shape[1:]), blocks
+        )
+        outs = jax.lax.map(run, blocks)
+        unpad = lambda a: a.reshape(
+            (n_chunks * chunk,) + a.shape[2:]
+        )[:P]
+        force, torque, torque_j, hist_new, pe, _, d = (
+            jax.tree.map(unpad, outs)
+        )
+    else:
+        force, torque, torque_j, hist_new, pe, _, d = run(blocks)
 
     # i side: pair_i is sorted by construction. Force and torque ride
     # one [P, 6] segment-sum (one pass over the pair index per side —
@@ -1061,5 +1100,6 @@ def contact_force_pairs(state, shapes, params, neigh,
     # exact after psum.
     w_pe = jnp.where(msk & neigh.pair_both, 1.0, 0.5)
     pe_total = jnp.sum(pe * w_pe)
-    virial = -jnp.einsum("p,pa,pb->ab", w_pe, d, force)
+    virial = -jnp.einsum("p,pa,pb->ab", w_pe, d, force,
+                         precision=jax.lax.Precision.HIGHEST)
     return f, tau, hist_new, pe_total, virial

@@ -1,6 +1,6 @@
 """Quaternion rigid-body velocity-Verlet integration.
 
-TPU-native equivalent of the reference's SH NVE integrator
+Array-program equivalent of the reference's SH NVE integrator
 (SURVEY.md section 2 B.5, expected ``src/SPHERHARM/fix_nve_sh.cpp``;
 contract BASELINE.json:5 "quaternion rigid-body velocity-Verlet
 integration"). The scheme mirrors upstream LAMMPS ``fix nve/asphere``:
@@ -22,6 +22,7 @@ the standard LAMMPS scheme for torque-accurate rigid-body rotation.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from spherharm_tpu.ops.rotation import (
@@ -149,7 +150,8 @@ def berendsen_box_control(state, x_build, params, virial, shapes):
     """
     m = shapes.mass_of(state.shtype, state.scale)
     kin = jnp.einsum(
-        "n,na,na->a", jnp.where(state.active, m, 0.0), state.v, state.v
+        "n,na,na->a", jnp.where(state.active, m, 0.0), state.v, state.v,
+        precision=jax.lax.Precision.HIGHEST,
     )
     vol = jnp.prod(state.box_hi - state.box_lo)
     p_diag = (kin + jnp.diagonal(virial)) / vol

@@ -1,6 +1,6 @@
 """Cell-list / Verlet neighbor build over fixed-capacity tensors.
 
-TPU-native replacement for the reference's Neighbor/NBin/NStencil/NPair
+Fixed-shape replacement for the reference's Neighbor/NBin/NStencil/NPair
 stack (SURVEY.md section 2 B.3; contract BASELINE.json:5 "the
 cell-list/Verlet neighbor build ... batched ... over fixed-capacity
 neighbor tensors"). LAMMPS's paged variable-length lists become a dense
@@ -10,7 +10,7 @@ shapes end to end, so the whole build lives inside jit (and inside
 
 Full-list semantics: pair (i, j) appears in both row i and row j; force
 accumulation is then a pure per-row reduction (no scatter, Newton's third
-law by antisymmetry of the pair kernel) — the TPU answer to LAMMPS's
+law by antisymmetry of the pair kernel) — the scatter-free answer to LAMMPS's
 newton-on reverse communication.
 """
 
@@ -253,7 +253,10 @@ def remap_history(new_key, new_mask, old_key, old_mask, old_hist,
             & nm[:, :, None]
             & rk[:, None, None]
         )
-        return jnp.einsum("nkl,nlc->nkc", m.astype(oh.dtype), oh)
+        # HIGHEST: a one-hot product must copy the springs bit-exactly
+        # (TF32 would round them to ~3 digits at every rebuild).
+        return jnp.einsum("nkl,nlc->nkc", m.astype(oh.dtype), oh,
+                          precision=jax.lax.Precision.HIGHEST)
 
     if N > chunk:
         n_chunks = -(-N // chunk)

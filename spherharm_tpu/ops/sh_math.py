@@ -1,6 +1,6 @@
 """Real spherical-harmonic math for SH-DEM particle surfaces.
 
-TPU-native replacement for the reference fork's SH math helper
+Array-program replacement for the reference fork's SH math helper
 (SURVEY.md section 2 B.4, expected at ``src/SPHERHARM/math_spherharm.cpp``
 in the reference once code lands; capability contract: BASELINE.json:5
 "associated-Legendre/Ylm recurrences, radius evaluation on Gauss-Legendre
@@ -195,8 +195,7 @@ def radius_grad_streaming_trig(coeffs, cos_t, sin_t, cos_p, sin_p, lmax: int):
     (r, dr/dt, dr/dp) sums as it is produced — no [..., NC] basis tensor
     is ever materialized. Takes TRIG COMPONENTS directly: the hot loop
     derives (cos t, sin t, cos p, sin p) from unit direction vectors
-    without ever forming the angles (no arccos/arctan2 — also required
-    by the Mosaic/Pallas lowering, which has no acos).
+    without ever forming the angles (no arccos/arctan2).
 
     coeffs: [..., NC] broadcastable against cos_t[...]'s leading dims
     (typically coeffs [P, NC] with cos_t [P, G] -> per-pair coefficient

@@ -2,7 +2,7 @@
 
 The hot kernels evaluate r(theta, phi) = sum_nm c_nm Y_nm and its first
 angular derivatives at quadrature nodes. The streaming ALP recurrence
-(ops/sh_math.py, contact_pallas._radius_grad_stream) recomputes the
+(ops/sh_math.py) recomputes the
 associated-Legendre chain per node: ~60% of its FLOPs are basis
 recurrence overhead that is independent of the coefficients.
 
@@ -176,8 +176,7 @@ def eval_power(tbl, ct, st, cp, sp, lmax: int, xp=np):
 
     tbl: [..., W] (leading dims broadcast against the node arrays);
     ct/st/cp/sp: node trig arrays. Written against a generic array
-    module ``xp`` (numpy for tests/setup, jnp inside traced code); the
-    Pallas kernels inline the identical unrolled loop on [B, G] planes.
+    module ``xp`` (numpy for tests/setup, jnp inside traced code).
     """
     lay = power_layout(lmax)
     runs = lay["runs"]
@@ -209,6 +208,33 @@ def eval_power(tbl, ct, st, cp, sp, lmax: int, xp=np):
         drp = drp + m * st_m * (cos_m * B[m] - sin_m * A[m])
         st_m1 = st_m
     return r, drt, drp
+
+
+def eval_power_radius(tbl, ct, st, cp, sp, lmax: int, xp=np):
+    """r only, from the A/B prefix of power-table rows: the first
+    (lmax+1)^2 columns of the layout, so a table sliced to that width
+    is enough (the rebuild-time prefilter probe)."""
+    runs = power_layout(lmax)["runs"]
+
+    def horner(off, n):
+        acc = tbl[..., off: off + 1]
+        for k in range(1, n):
+            acc = acc * ct + tbl[..., off + k: off + k + 1]
+        return acc
+
+    _, off0, n0 = runs["A"][0]
+    r = horner(off0, n0) + xp.zeros_like(ct)
+    cos_m, sin_m = cp, sp
+    st_m = xp.ones_like(st)
+    for m in range(1, lmax + 1):
+        if m > 1:
+            cos_m, sin_m = cos_m * cp - sin_m * sp, sin_m * cp + cos_m * sp
+        st_m = st_m * st
+        _, off_a, n_a = runs["A"][m]
+        _, off_b, n_b = runs["B"][m - 1]
+        r = r + st_m * (cos_m * horner(off_a, n_a)
+                        + sin_m * horner(off_b, n_b))
+    return r
 
 
 def eval_power_np(tbl, theta, phi, lmax: int):

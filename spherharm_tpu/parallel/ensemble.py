@@ -3,7 +3,7 @@
 The reference's multi-partition ``Universe`` / replica runs (SURVEY.md
 section 2 B.6: "Data parallel ... closest: replica runs (temper,
 multi-partition Universe)") map onto ``jax.vmap`` over the whole
-simulation step — the TPU-trivial form of data parallelism. One compiled
+simulation step — the trivial form of data parallelism. One compiled
 program advances R replicas that differ in state and/or physics
 parameters (e.g. a friction-coefficient sweep), batched on one chip or
 sharded over a mesh axis.

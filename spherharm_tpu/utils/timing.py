@@ -132,7 +132,7 @@ def print_breakdown(sections: dict, total_step_s: float | None = None):
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/spherharm_trace"):
+def trace(logdir: str):
     """jax.profiler trace context (open with TensorBoard / xprof)."""
     jax.profiler.start_trace(logdir)
     try:

@@ -1,7 +1,7 @@
-"""Numerical sanitizers — the reference's sanitizer/CI role, TPU-style.
+"""Numerical sanitizers — the reference's sanitizer/CI role, JAX-style.
 
 SURVEY.md section 5.2: the reference relies on ASan/UBSan builds; the
-pure-functional JAX design has no shared-memory races, so the TPU
+pure-functional JAX design has no shared-memory races, so the
 equivalents are (a) NaN/Inf detection, (b) capacity-overflow audits of
 the fixed-size tensors, (c) determinism checks (same seed => identical
 trajectory).

@@ -1,5 +1,5 @@
 """Static-cadence rebuild mode == displacement-triggered mode
-(the TPU-fast path: no data-dependent branch in the scan)."""
+(the fast path: no data-dependent branch in the scan)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,8 +1,8 @@
 """Chunked rebuild == unchunked rebuild (the n=1M single-chip enabler).
 
 The neighbor stencil/filter/top_k stage and the prefilter's full-basis
-probe materialize O(N*27*cell_cap) / O(P*81) transients — the 1M-
-particle OOM (BASELINE.md). Both now run through lax.map row blocks;
+probe materialize O(N*27*cell_cap) / O(P*81) transients, which run
+out of device memory at ~1M particles. Both run through lax.map row blocks;
 these pin bit-equality against the unchunked path at a size that forces
 several ragged blocks.
 """

@@ -1,6 +1,6 @@
 """Conservative (autodiff-gradient) elastic mode: energy across an
 undamped aspherical collision (the Lmax=8 drift-metric fix; see
-BASELINE.md 'Drift at Lmax=8' and scripts/conservative_probe.py)."""
+scripts/conservative_probe.py)."""
 
 import numpy as np
 import pytest
@@ -45,22 +45,10 @@ def _collide(conservative: bool, n_steps=24000, dt=2.5e-5, lmax=6):
 def test_conservative_mode_conserves_where_geometric_leaks():
     err_geom = _collide(conservative=False)
     err_auto = _collide(conservative=True)
-    # Measured (TPU f32, dt=2.5e-5): geom -3.56e-3, auto -1.5e-4.
+    # Expected scale (f32, dt=2.5e-5): geom ~-3.6e-3, auto ~-1.5e-4.
     assert abs(err_geom) > 1e-3      # the leak this mode exists to fix
     assert abs(err_auto) < 6e-4      # integrator-limited
     assert abs(err_auto) < 0.25 * abs(err_geom)
-
-
-def test_conservative_composes_with_pallas():
-    """Round 3: conservative mode composes with the Pallas kernel (the
-    hand-derived in-kernel gradient; parity pinned in test_pallas.py)."""
-    shapes = shapes_library.build_shapes(
-        [shapes_library.sphere_coeffs(0.5, 0)], 0, contact_quad=(6, 12)
-    )
-    params = SimParams.create(dt=1e-4, kn=1e4, cutoff=1.1, skin=0.1)
-    sim = Simulation(shapes, params, neighbor_mode="allpairs", k_max=1,
-                     conservative=True, use_pallas=True)
-    assert sim.conservative and sim.use_pallas
 
 
 @pytest.mark.slow

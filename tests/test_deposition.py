@@ -105,9 +105,8 @@ def test_small_deposition_dissipates_and_rotates():
 def test_torque_fidelity_vs_high_order_quadrature(seed):
     """Config-3 QUANTITATIVE bound (VERDICT r1 item 6): production
     quadrature (12, 24) vs a (20, 40) oracle on Lmax=8 blob contacts.
-    Measured 2026-08-16 (see BASELINE.md): force err <= 0.49%, torque
-    err <= 3.05% (worst case a shallow graze where |tau| is small);
-    asserted with modest slack."""
+    Observed: force err <= 0.49%, torque err <= 3.05% (worst case a
+    shallow graze where |tau| is small); asserted with modest slack."""
     def forces_at(cq):
         sim, state, neigh = _blob_pair_state(seed, contact_quad=cq)
         f, tau, _, pe, _ = contact.contact_force_dense(
@@ -127,9 +126,9 @@ def test_torque_fidelity_vs_high_order_quadrature(seed):
 
 @pytest.mark.slow
 def test_exact_vs_table_eval_many_body():
-    """VERDICT r1 weak-10: the CPU-default interp-table path and the
-    TPU-default streaming-ALP (exact) path were cross-validated only on
-    a 2-particle case. This compares them over a 48-particle contact-
+    """VERDICT r1 weak-10: the interp-table path and the streaming-ALP
+    (exact, default) path were cross-validated only on a 2-particle
+    case. This compares them over a 48-particle contact-
     rich bed: every per-particle force/torque must agree."""
     sim, state, neigh = scenarios.deposition(
         n=40, lmax=6, dt=1.5e-4, k_max=24, contact_quad=(8, 16),

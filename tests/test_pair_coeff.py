@@ -14,7 +14,7 @@ from spherharm_tpu.core.simulation import Simulation
 from spherharm_tpu.core.state import SimParams, pair_material
 from spherharm_tpu.io.deck import DeckRunner
 from spherharm_tpu.models import scenarios, shapes_library
-from spherharm_tpu.ops import contact, contact_pallas
+from spherharm_tpu.ops import contact
 from spherharm_tpu.ops.contact import minimum_image
 
 
@@ -88,75 +88,6 @@ def test_two_material_headon_equivalence():
     sc, nc = sim_c.run(sc, nc, 1500)
     assert not np.allclose(np.asarray(sa.x), np.asarray(sc.x), atol=1e-3)
 
-
-@pytest.mark.slow
-def test_pallas_per_pair_parity():
-    """jnp rows law == Pallas kernel (interpret) under a nontrivial
-    3-type table with distinct friction/rolling per pair."""
-    rng = np.random.default_rng(11)
-    lmax = 4
-    coeffs = np.stack([
-        shapes_library.blob_coeffs(lmax, seed=t, mean_radius=0.5,
-                                   roughness=0.12)
-        for t in range(3)
-    ])
-    shapes = shapes_library.build_shapes(coeffs, lmax,
-                                         contact_quad=(8, 16))
-    params = SimParams.create(dt=1e-4, kn=1e5, gamma_n=20.0, mu=0.4,
-                              k_roll=2e4, gamma_roll=10.0, mu_roll=0.2,
-                              cutoff=1.4, skin=0.2)
-    params = params.with_pair_coeffs(
-        3,
-        {(0, 1): (3e5, 1e5, 30.0, 10.0, 0.2, 1e4, 5.0, 0.1),
-         (2, 2): (5e4, 2e4, 5.0, 2.0, 0.7, 0.0, 0.0, 0.0)},
-    )
-    n = 24
-    x = rng.uniform(0.7, 3.3, (n, 3))
-    q = rng.normal(size=(n, 4))
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    state = scenarios.make_state(
-        x, [0, 0, 0], [4, 4, 4], q=q,
-        v=rng.normal(size=(n, 3)) * 0.2,
-        scale=rng.uniform(0.85, 1.15, n),
-        shtype=rng.integers(0, 3, n),
-    )
-    pi, pj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
-    sel = pi.ravel() != pj.ravel()
-    pi = jnp.asarray(pi.ravel()[sel], jnp.int32)
-    pj = jnp.asarray(pj.ravel()[sel], jnp.int32)
-    mask = jnp.ones(pi.shape, bool)
-    hist = jnp.asarray(rng.normal(size=(pi.shape[0], 6)) * 1e-4,
-                       jnp.float32)
-
-    rows = contact.particle_rows(state, shapes)
-    (f_ref, tau_ref, tauj_ref, hist_ref, pe_ref, inc_ref,
-     _) = contact.pair_contact_rows(
-        rows[pi], rows[pj], state.shtype[pi], state.shtype[pj], hist, mask,
-        state.box_lo, state.box_hi, shapes, params,
-        exact=True, periodic=(False, False, False),
-    )
-    d = minimum_image(
-        state.x[pj] - state.x[pi], state.box_lo, state.box_hi,
-        (False, False, False),
-    )
-    packed, tbl, cap, par = contact_pallas.pack_pairs(
-        state, shapes, params, pi, pj, mask, hist, d
-    )
-    out = contact_pallas.pair_contact_pallas(
-        packed, tbl, cap, par, lmax=shapes.lmax, block=64,
-        interpret=True,
-    )
-    f = np.asarray(out[:, 0:3])
-    inc = np.asarray(out[:, 16]) > 0.5
-    fmag = max(float(jnp.abs(f_ref).max()), 1e-6)
-    np.testing.assert_array_equal(inc, np.asarray(inc_ref))
-    np.testing.assert_allclose(f, np.asarray(f_ref), atol=2e-3 * fmag)
-    np.testing.assert_allclose(np.asarray(out[:, 3:6]),
-                               np.asarray(tau_ref), atol=2e-3 * fmag)
-    np.testing.assert_allclose(np.asarray(out[:, 9:15]),
-                               np.asarray(hist_ref),
-                               atol=1e-6 + 1e-3 * np.abs(hist_ref).max())
-    assert inc.sum() > 3
 
 
 DECK = """

@@ -2,8 +2,9 @@
 
 The prefilter (ops.contact.prefilter_pair_list) compacts the candidate
 pair list to near-contact pairs once per rebuild; correctness rests on
-the rotation-aware skin trigger (ops.neighbor.max_approach). These pin:
-trajectory equivalence vs the unfiltered pair list, the rotation term
+the probe bounding every contact's depth and on the rotation-aware skin
+trigger (ops.neighbor.max_approach). These pin: trajectory equivalence
+vs the unfiltered pair list, the probe's upper bound, the rotation term
 of the trigger, and loud overflow when the kept-list capacity is too
 small (SURVEY.md 2 B.3/B.4 neighbor + pair orchestration).
 """
@@ -16,7 +17,8 @@ import pytest
 from spherharm_tpu.core.simulation import Simulation
 from spherharm_tpu.core.state import SimParams
 from spherharm_tpu.models import scenarios, shapes_library
-from spherharm_tpu.ops import neighbor
+from spherharm_tpu.ops import contact, neighbor
+from spherharm_tpu.ops.contact import minimum_image
 from spherharm_tpu.ops.neighbor import CellGrid
 
 
@@ -48,7 +50,7 @@ def _mk(shapes, params, box, stage2, pair_cap=2048, **kw):
     return Simulation(
         shapes, params, periodic=(True,) * 3, neighbor_mode="cell",
         grid=grid, k_max=24, cell_cap=12, pair_capacity=pair_cap,
-        use_pallas=True, stage2_capacity=stage2, **kw,
+        stage2_capacity=stage2, **kw,
     )
 
 
@@ -157,3 +159,96 @@ def test_rotation_aware_trigger():
     )
     dr = abs(r_of(0.0) - r_of(alpha))
     assert float(shapes.gmax[0]) * alpha >= dr
+
+
+def test_probe_bounds_full_depth():
+    """The rebuild-time jnp probe (coarse 32-node grid) plus its slack
+    bounds the fine-grid node depth of every pair in contact, so the
+    prefilter never drops a touching pair at zero motion budget. Packed
+    3x3x3 lattice: overlaps up to a third of the mean radius."""
+    lmax, n = 6, 27
+    rng = np.random.default_rng(3)
+    shapes = shapes_library.build_shapes(
+        [shapes_library.blob_coeffs(lmax, seed=3 + t, mean_radius=0.5,
+                                    roughness=0.12) for t in range(3)],
+        lmax, contact_quad=(8, 16))
+    g = 1.0 + 0.95 * np.arange(3)
+    x = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    state = scenarios.make_state(
+        x + rng.uniform(-0.03, 0.03, (n, 3)), [0, 0, 0], [4, 4, 4], q=q,
+        scale=rng.uniform(0.85, 1.15, n), shtype=rng.integers(0, 3, n))
+    pi, pj = np.triu_indices(n, 1)
+    pi, pj = jnp.asarray(pi, jnp.int32), jnp.asarray(pj, jnp.int32)
+    mask = jnp.ones(pi.shape, bool)
+    rows = contact.particle_rows(state, shapes)
+    d = minimum_image(state.x[pj] - state.x[pi], state.box_lo,
+                      state.box_hi, (False, False, False))
+    rc = jnp.minimum(rows[pi, contact._RRC], rows[pj, contact._RRC])
+    bound = np.asarray(contact.probe_pairs(state, shapes, pi, pj, mask, d,
+                                           rows)
+                       + contact.PROBE_SLACK * rc)
+    depth = np.asarray(contact.max_node_depth(
+        rows[pi], rows[pj], state.shtype[pi], state.shtype[pj], d, shapes))
+    inc = depth > 0
+    assert inc.sum() > 30 and depth.max() > 0.1
+    assert np.all(bound[inc] >= depth[inc])
+    # Masked pairs are never kept.
+    masked = contact.probe_pairs(state, shapes, pi, pj,
+                                 jnp.zeros_like(mask), d, rows)
+    assert float(jnp.max(masked)) <= -1e8
+
+
+@pytest.mark.slow
+def test_two_stage_matches_single_stage():
+    """Prefiltered pair list (r-only coarse probe at rebuild -> full
+    narrow phase on survivors) must reproduce the unfiltered forces
+    exactly: the probe may only cull pairs the full law finds
+    force-free."""
+    rng = np.random.default_rng(3)
+    lmax = 4
+    coeffs = np.stack([
+        shapes_library.blob_coeffs(lmax, seed=11 + t, mean_radius=0.5,
+                                   roughness=0.12)
+        for t in range(3)
+    ])
+    shapes = shapes_library.build_shapes(coeffs, lmax, contact_quad=(8, 16))
+    box = 6.0
+    n = 80
+    # Dense-ish random gas: plenty of bounding-sphere candidates that are
+    # NOT touching (the population the probe exists to cull).
+    x = rng.uniform(0.8, box - 0.8, (n, 3))
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    params = SimParams.create(dt=1e-4, kn=1e5, gamma_n=20.0, mu=0.4,
+                              cutoff=1.4, skin=0.3)
+    state = scenarios.make_state(
+        x, [0, 0, 0], [box] * 3, q=q,
+        v=rng.normal(size=(n, 3)) * 0.3,
+        scale=rng.uniform(0.85, 1.15, n),
+        shtype=rng.integers(0, 3, n),
+    )
+    grid = CellGrid([0, 0, 0], [box] * 3, 1.7)
+    kw = dict(neighbor_mode="cell", grid=grid, k_max=24, cell_cap=12,
+              pair_capacity=1024, conservative=False)
+    sim_a = Simulation(shapes, params, stage2_capacity=256, **kw)
+    sim_b = Simulation(shapes, params, stage2_capacity=0, **kw)
+    sa, na = sim_a.init_neighbors(state)
+    sb, nb = sim_b.init_neighbors(state)
+    sa, na, _ = sim_a.compute_forces(sa, na)
+    sb, nb, _ = sim_b.compute_forces(sb, nb)
+    assert int(na.overflow) < 256  # stage-2 capacity honored
+    assert float(jnp.abs(sa.f).max()) > 0, "should have real contacts"
+    np.testing.assert_allclose(np.asarray(sa.f), np.asarray(sb.f),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(sa.tau), np.asarray(sb.tau),
+                               rtol=1e-6, atol=1e-6)
+    # Pair lists differ in size/order (the prefiltered list is the
+    # stage-2 compaction); springs must agree in the dense tag-keyed
+    # layout both fold back into.
+    np.testing.assert_allclose(
+        np.asarray(contact.pair_hist_to_dense(na)),
+        np.asarray(contact.pair_hist_to_dense(nb)),
+        rtol=1e-6, atol=1e-9,
+    )

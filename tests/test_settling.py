@@ -40,7 +40,7 @@ def test_settling_packs_and_calms():
     # Packing fraction: physical for a dense bed is ~0.45-0.70, but a
     # 64-particle bed is ~2 uneven layers and the slab-height estimator
     # is biased there — this is a sanity window only; the quantitative
-    # check is config 2 at n=500 (TPU-scale validation run).
+    # check is config 2 at n=500 (full-scale validation run).
     phi = float(computes.packing_fraction_box(state, sim.shapes))
     assert 0.30 < phi < 1.10, phi
     # Neighbor machinery stayed within capacity.

@@ -3,8 +3,7 @@
 The hot kernels evaluate the radius field via per-type Horner tables
 (ops/sh_power.py); this pins those tables against the scipy-validated
 basis evaluators (ops/sh_np.py) and checks f32 conditioning at lmax=8
-(SURVEY.md 2 B.4 SH math helper; the kernel twin is covered by
-tests/test_pallas.py parity).
+(SURVEY.md 2 B.4 SH math helper).
 """
 
 import numpy as np
@@ -88,9 +87,7 @@ def test_shapes_carry_power_tables():
     )
     lay = sh_power.power_layout(8)
     assert shapes.power_tbl.shape == (1, lay["W"])
-    assert float(shapes.tail1[0]) > 0
     assert float(shapes.gmax[0]) > 0
     sph = shapes_library.build_shapes(
         [shapes_library.sphere_coeffs(0.5, 0)], 0)
     assert float(sph.gmax[0]) == 0.0
-    assert float(sph.tail1[0]) == 0.0

@@ -259,45 +259,6 @@ def test_seam_crossing_pairs_match_single_device():
     assert int(ng8.overflow) < 128
 
 
-def test_sharded_pallas_matches_jnp_path():
-    """ShardedSimulation with use_pallas=True (interpret mode on CPU)
-    must track the jnp pair path (VERDICT r1 weak-4: the combination
-    had zero coverage)."""
-    n_dev = 2
-    shapes, params, state0, box = _setup(n=48, lmax=2, seed=4)
-    mesh = Mesh(np.array(jax.devices()[:n_dev]), ("x",))
-    kw = dict(
-        shapes=shapes, params=params, mesh=mesh,
-        box_lo=(0, 0, 0), box_hi=(box, box, box),
-        cap_local=64, halo_cap=48, migrate_cap=24,
-        periodic=(True, True, True), k_max=16, cell_cap=12,
-        pair_capacity=512,
-        conservative=False,
-    )
-    sim_j = ShardedSimulation(use_pallas=False, **kw)
-    sj, nj, gj = sim_j.init(state0)
-    sj, nj, gj = sim_j.run(sj, nj, gj, 60)
-
-    sim_p = ShardedSimulation(use_pallas=True, **kw)
-    sp, np_, gp = sim_p.init(state0)
-    sp, np_, gp = sim_p.run(sp, np_, gp, 60)
-
-    def by_tag(state, field):
-        tags = np.asarray(state.tag)
-        act = np.asarray(state.active)
-        arr = np.asarray(getattr(state, field))
-        return {int(t): arr[i] for i, t in enumerate(tags) if act[i]}
-
-    xa, xb = by_tag(sj, "x"), by_tag(sp, "x")
-    va, vb = by_tag(sj, "v"), by_tag(sp, "v")
-    assert set(xa) == set(xb)
-    for t in xa:
-        np.testing.assert_allclose(xb[t], xa[t], atol=5e-4,
-                                   err_msg=f"x tag {t}")
-        np.testing.assert_allclose(vb[t], va[t], atol=2e-3,
-                                   err_msg=f"v tag {t}")
-
-
 def test_sharded_restart_roundtrip(tmp_path):
     """gather_restart -> write_restart -> read -> re-init on a DIFFERENT
     mesh width -> run; must match the uninterrupted sharded run per tag
@@ -460,8 +421,8 @@ def _run_weighted_balance_case(balance_fracs):
 
 
 def test_sharded_prefilter_matches_single_device():
-    """Sharded run with the REBUILD-CADENCE PREFILTER (use_pallas +
-    stage2_capacity: the production bench configuration) matches the
+    """Sharded run with the REBUILD-CADENCE PREFILTER (stage2_capacity:
+    the production bench configuration) matches the
     plain single-device jnp trajectory per tag — pins the sharded
     prefilter wiring (budget leaf sharding, stage2-sized pair leaves,
     approach_ratio trigger under pmax)."""
@@ -485,7 +446,7 @@ def test_sharded_prefilter_matches_single_device():
         box_hi=(box, box, box),
         cap_local=96, halo_cap=64, migrate_cap=32,
         periodic=periodic, k_max=24, cell_cap=12, pair_capacity=768,
-        use_pallas=True, stage2_capacity=256,
+        stage2_capacity=256,
         conservative=False,
     )
     sp, ngp, ghp = simp.init(state0)

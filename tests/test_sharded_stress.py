@@ -2,7 +2,7 @@
 migration churn, rebalance-under-flow, deliberate cap overflow, and a
 brick-vs-slab-vs-single equivalence run on the virtual 8-device CPU mesh
 (SURVEY.md 4.2 — the mpirun-on-localhost analogue; config 5 insurance
-so the first real v5e-8 run holds no surprises).
+so the first real multi-GPU run holds no surprises).
 
 The smoke-scale equivalence tests live in test_sharded.py/test_brick.py;
 this file pushes occupancy, migration rates, and in-run rebalancing well
